@@ -1,7 +1,7 @@
-"""isaac_ros_apriltag_tpu — a TPU-native AprilTag perception engine.
+"""isaac_ros_apriltag_tpu — an AprilTag perception engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-NVIDIA-ISAAC-ROS/isaac_ros_apriltag (reference mounted at /root/reference):
+A from-scratch JAX/XLA re-design of the capabilities of
+NVIDIA-ISAAC-ROS/isaac_ros_apriltag:
 fiducial detection + 6-DoF pose as pure-array jit-compiled pipelines, plus a
 distributed tag-map SLAM layer (no reference analog) over jax.sharding
 meshes.

@@ -7,9 +7,9 @@ family-vs-backend validation (ref: apriltag_node.cpp:584-599), re-expressed as
 a frozen dataclass validated eagerly at construction.
 
 Backends (the reference's CPU|CUDA|PVA trait, ref: apriltag_node.cpp:576-582):
-  - 'xla'       pure jax.numpy reference pipeline (correctness oracle)
-  - 'pallas'    Pallas TPU kernels on the hot stages
-  - 'interpret' Pallas kernels in interpreter mode (debugging / CI on CPU)
+  - 'scan'  production: two-phase scan CCL (scan rounds -> compacted
+            rank-space contraction -> scan rounds), plain JAX throughout
+  - 'xla'   correctness oracle: scan CCL with rationed pointer jumps
 """
 
 from __future__ import annotations
@@ -18,11 +18,11 @@ import dataclasses
 
 from .models.families import FAMILY_SPECS, family_names
 
-BACKENDS = ("xla", "pallas", "interpret")
+BACKENDS = ("xla", "scan")
 
 # Family support matrix per backend. Unlike the reference — whose CUDA backend
 # supports only tag36h11 (ref: apriltag_node.cpp:429-432, README.md:49-59) —
-# every TPU backend is table-driven and supports all nine families; the matrix
+# every backend here is table-driven and supports all nine families; the matrix
 # exists so configs stay validated if a restricted backend is ever added.
 BACKEND_FAMILIES = {b: tuple(family_names()) for b in BACKENDS}
 
@@ -36,18 +36,16 @@ class DetectorConfig:
     max_tags: int = 64
     tag_size: float = 0.22          # edge length of the border square, meters
     tile_size: int = 4              # adaptive-threshold tile edge, pixels
-    backend: str = "pallas"
+    backend: str = "scan"
 
     # Segmentation decimation (AprilTag 3's quad_decimate; the closed
     # reference backends decimate likewise). Segmentation/quad-fitting run on
     # a (H/d, W/d) mean-pooled image; corner refinement and decoding run on
-    # the full-resolution image, so corner accuracy is preserved. On TPU this
-    # is also the key memory-locality lever: at d=2 every label/size table
-    # fits in VMEM, where scatter/gather run ~2 orders of magnitude faster
-    # than HBM-resident tables (measured: tools/profile_microops.py).
+    # the full-resolution image, so corner accuracy is preserved; d=2 also
+    # quarters every per-pixel label and size table.
     quad_decimate: int = 2
 
-    # TPU pipeline capacities (all static; data-dependent counts are handled
+    # Pipeline capacities (all static; data-dependent counts are handled
     # with validity masks, same tradeoff as the reference's max_tags arrays,
     # ref: apriltag_node.cpp:285-289). max_edge_points / max_components are
     # CAPS: the effective capacities scale with the segmentation-image pixel
@@ -64,21 +62,21 @@ class DetectorConfig:
     ccl_rounds: int = 8              # scan/propagate rounds (see ops/ccl.py)
     ccl_jumps: int = 2               # pointer-jumping passes per jump round
     ccl_jump_every: int = 4          # jump rounds: every Nth round
-    # Scan-only CCL (pallas backend; ops/pallas/ccl_fused.py): two scan
-    # phases with a compacted chain CONTRACTION (ops/resolve.resolve_roots)
-    # between them — the role round 3's full-image pointer jumps played, at
-    # ~1/3 the cost. Measured (TPU, noisy 1080p): a SINGLE long scan phase
-    # is non-monotonic in rounds — a distant min label can propagate
-    # PARTWAY into a tag border through percolation-noise bridges and split
-    # its labels (8 rounds: 6/6 detections; 24 rounds: 0/6 at noise=4) —
-    # while contraction + a short second phase re-converges the border.
+    # Two-phase scan CCL (scan backend; ops/ccl.two_phase_ccl): two scan
+    # phases with a compacted chain CONTRACTION (ops/resolve.resolve_roots_rank)
+    # between them, in place of full-image pointer jumps. A SINGLE long
+    # scan phase is non-monotonic in rounds under percolation noise — a
+    # distant min label can propagate PARTWAY into a tag border and split
+    # its labels (tests/test_resolve.py sweeps the noise levels) — while
+    # contraction + a short second phase re-converges the border.
     # Residual chains are finished exactly by ops/resolve.py with
     # `ccl_resolve_steps` pointer doublings (both backends run the same
     # final resolve).
     ccl_scan_rounds: int = 8         # phase-1 scan rounds
     ccl_phase2_rounds: int = 6       # post-contraction scan rounds (0 = off)
     # Chain pointer-doublings (depth 2^n). The mid-loop contraction faces
-    # phase-1 chains (measured depth up to ~24 at 8 rounds -> 5 doublings);
+    # phase-1 chains (depth up to ~24 at 8 rounds on noisy scenes -> 5
+    # doublings);
     # the final resolve only sees chains formed during the short phase 2
     # (depth <= phase2_rounds + 1 -> 3 doublings). Both report shortfall
     # via the converged flag (FrameStats.ccl_converged).
@@ -124,10 +122,6 @@ class DetectorConfig:
                              "(8-bit slot packing in the cluster broadcast)")
         if self.tile_size < 2:
             raise ValueError("tile_size must be >= 2")
-        if self.backend in ("pallas", "interpret") and self.tile_size not in (2, 4, 8, 16, 32):
-            raise ValueError(
-                f"tile_size={self.tile_size} unsupported by the {self.backend!r} "
-                "backend (Pallas threshold kernel requires tile_size in {2,4,8,16,32})")
         if self.quad_decimate < 1:
             raise ValueError("quad_decimate must be >= 1")
         if self.ccl_jump_every < 1:

@@ -1,6 +1,6 @@
 """Tag family definitions: geometric bit layouts + codeword tables.
 
-TPU-native re-design of the reference's family handling. The reference keeps a
+Re-design of the reference's family handling. The reference keeps a
 string->enum map of nine families (ref: isaac_ros_apriltag/src/apriltag_node.cpp:47-58)
 and delegates layouts/codebooks to closed-source backends (cuAprilTags / VPI).
 Here a family is pure data: bit-cell coordinates in the border frame plus a

@@ -1,9 +1,9 @@
 """Connected-component labeling on the trinary image.
 
 The reference's backends do this with a union-find CCL inside closed CUDA
-kernels. Union-find is pointer-chasing and hostile to SIMD/systolic hardware,
-so the TPU formulation combines three dense primitives per round
-(the scan-based GPU-CCL family; see PAPERS.md refs — pattern only):
+kernels. Here CCL is built from dense array primitives that XLA compiles
+as they stand, three per round (the scan-based GPU-CCL family; see
+PAPERS.md refs — pattern only):
 
   1. **segmented min-scans** along rows and columns (forward + backward):
      a label propagates across an entire run of same-valued pixels in one
@@ -15,10 +15,15 @@ so the TPU formulation combines three dense primitives per round
      white pixels only, matching AprilTag 3's rule that keeps adjacent tags'
      black borders from merging diagonally);
   3. **pointer jumping** (label = label[label], a dense gather) to compress
-     label chains.
+     label chains — the `xla` oracle only.
 
 `rounds` statically bounds the iteration for jit; 4 rounds converge every
 scene we generate (rings included), 6 is the safe default.
+
+The production path (`two_phase_ccl`) runs no pointer jumps: a phase of
+scan rounds, a chain contraction on the compacted label set
+(ops/resolve.resolve_roots_rank), and a short second phase of scan rounds
+on the contracted rank labels.
 """
 
 from __future__ import annotations
@@ -119,15 +124,14 @@ def connected_components(trinary: jax.Array, rounds: int = 6, jumps: int = 2,
 
     # Materialize the loop-invariant masks ONCE. Without this barrier XLA
     # recomputation-fuses the whole threshold+boundary chain into every step
-    # of every associative scan below (measured: 0.16 ms -> 230 ms per frame
-    # and a 250 s compile when composed with the threshold stage).
+    # of every associative scan below (a >1000x slowdown and minutes of
+    # compilation when composed with the threshold stage).
     row_b, row_b_rev, col_b, col_b_rev, diag_conn = (
         jax.lax.optimization_barrier(
             (row_b, row_b_rev, col_b, col_b_rev, diag_conn)))
 
     def body(r, label):
-        # Round order (row scans -> diag hop -> col scans -> jumps) matches
-        # the Pallas backend round-for-round for bit-exact parity.
+        # Round order: row scans -> diag hop -> col scans -> jumps.
         label = _seg_min_scan(label, row_b, 1, False)
         label = _seg_min_scan(label, row_b_rev, 1, True)
         # one diagonal hop (white only), all neighbors from the pre-hop label
@@ -165,3 +169,34 @@ def component_sizes(label: jax.Array) -> jax.Array:
     flat = label.reshape(-1)
     sizes = jnp.zeros(flat.shape, jnp.int32)
     return sizes.at[flat].add(1)
+
+
+def two_phase_ccl(trinary: jax.Array, phase1_rounds: int, phase2_rounds: int,
+                  *, max_components: int, contraction_steps: int):
+    """The production CCL: scan rounds -> rank-space contraction -> scan.
+
+    (H, W) uint8 trinary -> (label, converged, rank_table, overflow).
+    Phase 1 is `phase1_rounds` jump-free scan rounds on flat-index labels.
+    With `phase2_rounds` > 0, ops/resolve.resolve_roots_rank replaces every
+    label by the compacted rank of its chain fixpoint (16-bit ranks,
+    order-isomorphic to root flat indices) and phase 2 scans those ranks;
+    `label` is then in rank space, `rank_table` maps ranks to root flat
+    indices and `overflow` flags a contraction over capacity. With
+    `phase2_rounds` == 0 both are None and `label` holds flat indices.
+    `converged` is True iff the last scan round changed nothing.
+    """
+    from .resolve import resolve_roots_rank
+
+    label, converged = connected_components(
+        trinary, phase1_rounds, jumps=0, with_convergence=True)
+    if phase2_rounds == 0:
+        return label, converged, None, None
+    label = jax.lax.optimization_barrier(label)
+    with jax.named_scope("contraction"):
+        rank_img, rank_table, overflow = resolve_roots_rank(
+            label, trinary != 127, max_components=max_components,
+            chain_steps=contraction_steps)
+    label, converged = connected_components(
+        trinary, phase2_rounds, jumps=0,
+        label0=jax.lax.optimization_barrier(rank_img), with_convergence=True)
+    return label, converged, rank_table, overflow

@@ -5,15 +5,10 @@ AprilTag 3 buckets black/white neighbor-pair midpoints by (black component,
 white component) key, then fits each cluster's quad from an angular sweep of
 its points. Quad fitting only ever consumes ANGULAR-BIN MOMENT SUMS
 (ops/quadfit.py), which are order-free reductions — so the clustering stage
-is formulated entirely in the primitives this TPU executes at full vector
-speed, measured on hardware (tools/profile_microops.py, RTT-corrected):
-
-  - `jax.lax.sort` is FAST (2M x 3-operand ~2.7 ms; 131k multi-operand
-    ~0.2 ms) — it is the data-movement primitive of choice;
-  - cumsum / associative_scan over 131k-2M: ~0.1-0.4 ms;
-  - per-element gather/scatter is SERIAL (~7 ns/element, 15 ms per 2M pass)
-    — the hash-table formulation this file replaces spent 389 ms/frame in
-    exactly those passes.
+is formulated in sorts, plain scans and one-hot matmuls, with no per-pair
+gather or scatter (a formulation chosen on the earlier accelerator, whose
+per-element gathers serialized; not measured against segment_sum or
+scatter-add on the H100).
 
 Pipeline (no per-pair gathers or scatters anywhere):
 
@@ -30,12 +25,10 @@ Pipeline (no per-pair gathers or scatters anywhere):
   3. segment SIZES from positions alone (one reverse cummin: size =
      last_pos - first_pos + 1 — every pair in a segment is valid), feeding
      the top-`max_clusters` selection (one top_k); slot ids broadcast to
-     members by a forward copy-scan. NO E-length moment scans: round 5
-     measured the former (E,7)-channel segmented scan + (E,4) reverse
-     broadcast as the stage's dominant cost and moved all moment work down
-     to the E2 budget (~6x smaller);
+     members by one packed cummax. NO E-length moment scans: all moment
+     work runs at the E2 budget (~6x smaller);
   4. a SECOND sort by slot id compacts the top-C clusters' pairs to
-     E2 = C * max_cluster_points; at E2 every reduction is a one-hot MXU
+     E2 = C * max_cluster_points; at E2 every reduction is a one-hot
      matmul: per-cluster stats (centroid, scale, gradient polarity) are
      onehot^T @ fields, per-pair normalization parameters are re-fetched
      by the bit-exact onehot @ table form, and the (cluster, bin) moment
@@ -190,10 +183,7 @@ def extract_cluster_moments(trinary: jax.Array, dense: jax.Array, *,
     # sentinel key and form the tail segment), so a segment's size is
     # last_pos - first_pos + 1; the nearest is_last at-or-after each
     # position is its own segment's last, found by a reverse cummin. The
-    # per-cluster moment sums that round 4 computed here with (E,7)-channel
-    # segmented scans + an (E,4) reverse broadcast moved DOWN to the E2
-    # budget (~6x smaller) after sort 2 — measured round 5, the E-length
-    # multi-channel scans were the stage's dominant cost.
+    # per-cluster moment sums run at the E2 budget after sort 2.
     idxs = jnp.arange(E, dtype=jnp.int32)
     nxt_first = jnp.concatenate([first[1:], jnp.ones((1,), bool)])
     nxt_valid = jnp.concatenate([valid[1:], jnp.zeros((1,), bool)])
@@ -209,8 +199,7 @@ def extract_cluster_moments(trinary: jax.Array, dense: jax.Array, *,
     eligible = (true_size >= min_cluster_pixels) & (true_size <= max_perimeter)
     gated = jnp.where(eligible, count_at_start, 0)
     # top-C by size as ONE stable 2-operand descending sort: identical
-    # selection and tie order to lax.top_k (ties -> lower position first),
-    # ~3x cheaper at E on this hardware (tools/profile_cluster.py).
+    # selection and tie order to lax.top_k (ties -> lower position first).
     neg_sizes, top_pos = jax.lax.sort((-gated, idxs), num_keys=1)
     top_sizes, top_pos = -neg_sizes[:C], top_pos[:C]
     cvalid = top_sizes > 0
@@ -223,9 +212,7 @@ def extract_cluster_moments(trinary: jax.Array, dense: jax.Array, *,
     # win; unseeded groups read 0 low bits -> slot -1). rank <= E <
     # 4*2047*2047 < 2^24 (the packed-coords image guard above) and
     # slot+1 <= C <= 128 <= 2^8 - 1, so the pack fits uint32. Replaces an
-    # E-length segmented
-    # copy-scan — the log-step custom-combinator scans were measured as the
-    # stage's dominant cost class (tools/profile_cluster.py).
+    # E-length segmented copy-scan with a custom combinator.
     if C > 128:
         raise ValueError("max_clusters must be <= 128 (8-bit slot packing)")
     rank = jnp.cumsum(first.astype(jnp.uint32)) << 8
@@ -258,13 +245,12 @@ def extract_cluster_moments(trinary: jax.Array, dense: jax.Array, *,
     gy2 = (((gp2 >> 2) & 0x3) - 1).astype(jnp.float32)
     w2 = v2.astype(jnp.float32)
 
-    # --- per-cluster stats at E2: ONE one-hot MXU reduction -----------------
+    # --- per-cluster stats at E2: ONE one-hot matmul reduction -------------
     # Per-slot sums are onehot^T @ fields — slots are <= 128 one-hot
-    # columns, so the MXU does the segmented reduction in one matmul
-    # (exact per segment: off-slot products are exact zeros). Replaces the
-    # (E2,7) segmented scan + scatter of the earlier revision.
-    # precision=HIGHEST throughout: the default MXU path rounds operands
-    # through bfloat16.
+    # columns, so one matmul does the segmented reduction (exact per
+    # segment: off-slot products are exact zeros).
+    # precision=HIGHEST throughout: a default-precision f32 matmul may round
+    # its operands (to TF32 on the GPU).
     HI = jax.lax.Precision.HIGHEST
     F2 = jnp.stack([w2, x2 * w2, y2 * w2, (x2 * x2 + y2 * y2) * w2,
                     gx2 * w2, gy2 * w2, (x2 * gx2 + y2 * gy2) * w2], -1)
@@ -284,7 +270,7 @@ def extract_cluster_moments(trinary: jax.Array, dense: jax.Array, *,
     # --- per-pair angular bin about the cluster centroid --------------------
     # Per-pair normalization parameters are fetched from the tiny (C,)
     # tables with the same one-hot matrix — bit-exact: the one-hot row has
-    # a single 1.0, so the MXU accumulation adds exact zeros.
+    # a single 1.0, so the accumulation adds exact zeros.
     paramC = jnp.stack([ccx, ccy, jnp.maximum(r2m, 1e-12)], -1)   # (C, 3)
     params = jnp.matmul(onehot, paramC, precision=HI)             # (E2, 3)
     cx2, cy2, r2_2 = params[:, 0], params[:, 1], params[:, 2]
@@ -296,7 +282,7 @@ def extract_cluster_moments(trinary: jax.Array, dense: jax.Array, *,
     # --- (cluster, bin) cell tables: factored one-hot matmul ----------------
     # cell[s, b, f] = sum_e onehot[e, s] * oh_bin[e, b] * F3[e, f] — the
     # third sort + segmented scan + scatter of earlier revisions collapse
-    # into one (C, E2) @ (E2, K*6) MXU contraction (~6 GFLOP). Invalid rows
+    # into one (C, E2) @ (E2, K*6) contraction (~6 GFLOP). Invalid rows
     # have an all-zero onehot row, so no masking of F3 is needed beyond w2
     # (kept explicit so non-finite garbage can never ride a 0*x product).
     F3 = jnp.stack([w2, sxn * w2, syn * w2, sxn * sxn * w2,

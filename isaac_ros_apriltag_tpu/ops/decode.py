@@ -5,7 +5,7 @@ Replaces the decode half of the reference's closed cuAprilTags/VPI engines
 fully table-driven XLA implementation:
 
   1. 4-point homography from the unit square to the quad (utils.geometry,
-     batched solve on the MXU);
+     batched solve);
   2. bilinear sampling of every bit-cell center plus two reference rings
      (border ring + just-outside ring);
   3. per-quad linear gray models (a + b*u + c*v) fit to each reference ring —
@@ -63,8 +63,8 @@ def _cell_uv(cells: np.ndarray, wb: int) -> np.ndarray:
 def _bilinear(gray: jax.Array, pts: jax.Array) -> jax.Array:
     """Sample gray — (H, W), or (H, W, 4) pre-stacked via
     refine._neighbor_stack — at pixel coords pts (..., 2); clamped borders.
-    The stacked form fetches all four taps in one gather row (per-row cost
-    dominates TPU gathers); arithmetic is bit-identical."""
+    The stacked form fetches all four taps in one gather row; arithmetic is
+    bit-identical."""
     H, W = gray.shape[:2]
     x = jnp.clip(pts[..., 0], 0.0, W - 1.001)
     y = jnp.clip(pts[..., 1], 0.0, H - 1.001)
@@ -91,10 +91,11 @@ def _fit_gray_model(uv: jax.Array, vals: jax.Array) -> jax.Array:
 
     ones = jnp.ones_like(uv[..., :1])
     A = jnp.concatenate([ones, uv], -1)                       # (..., N, 3)
-    AtA = jnp.einsum("...ni,...nj->...ij", A, A)
+    hi = jax.lax.Precision.HIGHEST
+    AtA = jnp.einsum("...ni,...nj->...ij", A, A, precision=hi)
     AtA = AtA + 1e-6 * jnp.eye(3)
-    Atb = jnp.einsum("...ni,...n->...i", A, vals)
-    return jnp.einsum("...ij,...j->...i", inverse3x3(AtA), Atb)
+    Atb = jnp.einsum("...ni,...n->...i", A, vals, precision=hi)
+    return jnp.einsum("...ij,...j->...i", inverse3x3(AtA), Atb, precision=hi)
 
 
 def _eval_gray_model(model: jax.Array, uv: jax.Array) -> jax.Array:

@@ -3,8 +3,8 @@
 Replaces the reference's VPI ConvertImageFormat stage
 (ref: isaac_ros_apriltag/src/apriltag_node.cpp:276-282) and its five supported
 encodings (rgb8/bgr8/rgba8/bgra8/mono8, ref: apriltag_node.cpp:76-82).
-BT.601 weights match VPI/OpenCV. XLA fuses this into the threshold stage; the
-Pallas fast path fuses it explicitly.
+BT.601 weights match VPI/OpenCV. The weighted sum is written elementwise (a
+length-3 contraction), so no matmul precision setting can round it.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def grayscale(image: jax.Array, encoding: str = "rgb8") -> jax.Array:
         return image.astype(jnp.float32)
     r, g, b = _BT601[0], _BT601[1], _BT601[2]
     if encoding in ("bgr8", "bgra8"):
-        w = jnp.array([b, g, r], jnp.float32)
-    else:
-        w = jnp.array([r, g, b], jnp.float32)
-    return jnp.einsum("hwc,c->hw", image[..., :3].astype(jnp.float32), w)
+        r, b = b, r
+    rgb = image[..., :3].astype(jnp.float32)
+    return (rgb[..., 0] * jnp.float32(r) + rgb[..., 1] * jnp.float32(g)
+            + rgb[..., 2] * jnp.float32(b))

@@ -1,10 +1,10 @@
 """Quad fitting: boundary clusters -> candidate quads (4 subpixel corners).
 
-TPU-native reformulation of AprilTag 3's fit_quad. The original algorithm
+A dense reformulation of AprilTag 3's fit_quad. The original algorithm
 sorts each cluster's points by angle and slides point-indexed windows around
 the boundary; that formulation needs an argsort plus ~17 dynamically-indexed
-gathers per cluster and measured ~80 ms/frame on TPU. Here the angular
-dimension is QUANTIZED into K=64 fixed bins instead:
+gathers per cluster. Here the angular dimension is QUANTIZED into K=64
+fixed bins instead:
 
   1. per-point angle about the centroid -> bin id (elementwise, computed
      upstream in ops/cluster_moments.py with the sort-centric grouping);
@@ -60,10 +60,9 @@ def _arc_sums(S_list, a: jax.Array, b: jax.Array):
     Each S: (C, K+1) prefix sums; a, b int arrays (C, ...) with 0 <= a <= K,
     a-1 <= b < a + K (b < a yields an empty arc = 0); b may exceed K (wraps).
 
-    TPU formulation: the three prefix lookups per arc are fused into ONE
-    one-hot matmul per table — (C, P, K+1) selector @ (C, K+1) — instead of
-    take_along_axis (measured: per-element gathers serialize on TPU, and
-    this pick machinery dominated the quad-fit stage).
+    The three prefix lookups per arc are fused into ONE one-hot matmul per
+    table — (C, P, K+1) selector @ (C, K+1) — instead of take_along_axis
+    (not yet timed against the gather on the H100).
     """
     C, K1 = S_list[0].shape
     K = K1 - 1
@@ -87,8 +86,8 @@ def _arc_sums(S_list, a: jax.Array, b: jax.Array):
     outs = []
     for S in S_list:
         # HIGHEST precision is load-bearing: arc sums are small differences
-        # of large prefix values, and the TPU MXU's default bf16 passes
-        # wipe them out (measured: detections halved at noisy 1080p).
+        # of large prefix values, which reduced-precision operand rounding
+        # (bf16 or TF32) wipes out.
         o = jnp.einsum("cpk,ck->cp", sel, S,
                        precision=jax.lax.Precision.HIGHEST)
         outs.append(o.reshape(shape))

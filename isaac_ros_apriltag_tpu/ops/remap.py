@@ -1,6 +1,6 @@
 """Image warping ops: rectification remap + resize.
 
-TPU-native equivalents of the external isaac_ros_image_proc Rectify/Resize
+Equivalents of the external isaac_ros_image_proc Rectify/Resize
 nodes the reference composes upstream of the detector
 (ref: isaac_ros_apriltag/package.xml:49, launch/isaac_ros_apriltag_usb_cam.
 launch.py:43-52, README.md:16-26 — incl. the motivating 8 MP -> 4:1 downscale
@@ -8,17 +8,15 @@ path).
 
 Two remap formulations:
 
-  - `remap_bilinear`: the direct gather form — the CORRECTNESS ORACLE.
-    Per-element gathers serialize on this TPU (~7 ns/element; a 1080p
-    rectify is 4 x 2M gathered taps ~ 60 ms), so it is not the production
-    path.
+  - `remap_bilinear`: the direct gather form — the CORRECTNESS ORACLE
+    (a 1080p rectify is 4 x 2M gathered taps).
   - `SeparableRectify`: the production path. Rectification maps are smooth
     and near-identity, so the warp factors into a horizontal then a
     vertical 1D resample (Catmull-Smith two-pass), and each 1D bilinear
     resample with bounded displacement |src - dst| <= D becomes a BANDED
     shift-multiply-accumulate: out = sum_d hat(src - (dst+d)) * shift(in, d)
-    over the 2D+2 static offsets — pure VPU elementwise work, zero gathers.
-    ~1 ms at 1080p vs ~60 ms for the gather form.
+    over the 2D+2 static offsets — elementwise work, zero gathers. Chosen
+    where gathers serialized; not yet timed against the gather on the H100.
 """
 
 from __future__ import annotations
@@ -149,7 +147,7 @@ def resize_area(image: jax.Array, factor: int) -> jax.Array:
 
     The reference's README recommends exactly this for 8 MP inputs
     (4:1 -> 1080p, README.md:24-26); an integer box filter is a pure reshape
-    + mean, the cheapest possible formulation on TPU.
+    + mean.
     """
     f = int(factor)
     squeeze = image.ndim == 2

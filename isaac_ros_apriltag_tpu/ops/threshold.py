@@ -1,6 +1,6 @@
 """Adaptive thresholding: tile min/max -> trinary image {0, 127, 255}.
 
-TPU-native equivalent of the AprilTag-3 adaptive threshold that the
+Equivalent of the AprilTag-3 adaptive threshold that the
 reference's closed-source backends implement on GPU (the `tile_size` detector
 parameter, ref: isaac_ros_apriltag/src/apriltag_node.cpp:450-452, :566).
 
@@ -11,7 +11,8 @@ Algorithm (standard AprilTag 3):
   3. if max-min < min_white_black_diff the tile is low-contrast -> emit 127
      (excluded from segmentation); else threshold at min + (max-min)/2.
 
-Everything is dense reshapes/reductions — XLA maps it onto the VPU directly.
+Everything is dense reshapes/reductions that XLA fuses; there is no
+hand-written kernel for this stage.
 """
 
 from __future__ import annotations

@@ -31,6 +31,14 @@ import jax.numpy as jnp
 from ...ops.pose import TAG_CORNERS
 from ...utils.geometry import se3_exp
 
+# Every f32 contraction is pinned: a default-precision f32 dot may round its
+# operands (to TF32 on the GPU).
+_HI = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HI)
+
 
 class BAProblem(NamedTuple):
     # states
@@ -60,14 +68,14 @@ def _obs_residual(cam_inc, lm_inc, cam_R, cam_t, lm_R, lm_t, uv, K, tag_size):
     se(3) increments (linearization point at zero)."""
     dRc, dtc = se3_exp(cam_inc)
     dRl, dtl = se3_exp(lm_inc)
-    Rc = cam_R @ dRc
-    tc = cam_t + cam_R @ dtc
-    Rl = lm_R @ dRl
-    tl = lm_t + lm_R @ dtl
+    Rc = _mm(cam_R, dRc)
+    tc = cam_t + _mm(cam_R, dtc)
+    Rl = _mm(lm_R, dRl)
+    tl = lm_t + _mm(lm_R, dtl)
     corners_tag = jnp.concatenate(
         [jnp.asarray(TAG_CORNERS) * tag_size * 0.5, jnp.zeros((4, 1))], -1)
-    p_w = corners_tag @ Rl.T + tl                      # (4, 3)
-    p_c = (p_w - tc) @ Rc                              # R_c^T (p - t): (4, 3)
+    p_w = _mm(corners_tag, Rl.T) + tl                  # (4, 3)
+    p_c = _mm(p_w - tc, Rc)                            # R_c^T (p - t): (4, 3)
     return (_project(K, p_c) - uv).reshape(8)
 
 
@@ -102,12 +110,14 @@ def _sparse_terms(p: BAProblem, r, Jc, Jl, damping):
     Kn = p.cam_R.shape[0]
     Ln = p.lm_R.shape[0]
     Hcc = jnp.zeros((Kn, 6, 6)).at[p.obs_kf].add(
-        jnp.einsum("oij,oik->ojk", Jc, Jc))
-    gc = jnp.zeros((Kn, 6)).at[p.obs_kf].add(jnp.einsum("oij,oi->oj", Jc, r))
+        jnp.einsum("oij,oik->ojk", Jc, Jc, precision=_HI))
+    gc = jnp.zeros((Kn, 6)).at[p.obs_kf].add(
+        jnp.einsum("oij,oi->oj", Jc, r, precision=_HI))
     Hll = jnp.zeros((Ln, 6, 6)).at[p.obs_lm].add(
-        jnp.einsum("oij,oik->ojk", Jl, Jl))
-    gl = jnp.zeros((Ln, 6)).at[p.obs_lm].add(jnp.einsum("oij,oi->oj", Jl, r))
-    Wo = jnp.einsum("oij,oik->ojk", Jc, Jl)              # (O, 6, 6)
+        jnp.einsum("oij,oik->ojk", Jl, Jl, precision=_HI))
+    gl = jnp.zeros((Ln, 6)).at[p.obs_lm].add(
+        jnp.einsum("oij,oi->oj", Jl, r, precision=_HI))
+    Wo = jnp.einsum("oij,oik->ojk", Jc, Jl, precision=_HI)     # (O, 6, 6)
     eye = jnp.eye(6)
     Hcc = Hcc + damping * eye
     Hll = Hll + damping * eye
@@ -140,22 +150,24 @@ def _solve_reduced(Hcc_tot, gc_tot, Hll, gl, Wo, obs_kf, obs_lm, *,
         return jax.lax.psum(v, axis) if axis is not None else v
 
     def matvec(x):                                        # x (K, 6)
-        y = jnp.einsum("oij,oi->oj", Wo, x[obs_kf])       # W^T x per obs
+        # W^T x per obs
+        y = jnp.einsum("oij,oi->oj", Wo, x[obs_kf], precision=_HI)
         z = jnp.zeros_like(gl).at[obs_lm].add(y)          # (L, 6)
-        z = jnp.einsum("lij,lj->li", Hll_inv, z)
-        u = jnp.einsum("oij,oj->oi", Wo, z[obs_lm])       # W z per obs
+        z = jnp.einsum("lij,lj->li", Hll_inv, z, precision=_HI)
+        # W z per obs
+        u = jnp.einsum("oij,oj->oi", Wo, z[obs_lm], precision=_HI)
         wsum = psum(jnp.zeros_like(x).at[obs_kf].add(u))  # (K, 6)
-        return jnp.einsum("kij,kj->ki", Hcc_g, x) - wsum
+        return jnp.einsum("kij,kj->ki", Hcc_g, x, precision=_HI) - wsum
 
     # b = gc - W Hll^-1 gl
-    ygl = jnp.einsum("lij,lj->li", Hll_inv, gl)
+    ygl = jnp.einsum("lij,lj->li", Hll_inv, gl, precision=_HI)
     b = gc_tot - psum(jnp.zeros((Kn, 6)).at[obs_kf].add(
-        jnp.einsum("oij,oj->oi", Wo, ygl[obs_lm])))
+        jnp.einsum("oij,oj->oi", Wo, ygl[obs_lm], precision=_HI)))
 
     Minv = jnp.linalg.inv(Hcc_g)                          # block-Jacobi
 
     def precond(x):
-        return jnp.einsum("kij,kj->ki", Minv, x)
+        return jnp.einsum("kij,kj->ki", Minv, x, precision=_HI)
 
     dx_c, _ = jax.scipy.sparse.linalg.cg(matvec, -b, M=precond,
                                          maxiter=cg_iters, tol=1e-10)
@@ -166,18 +178,18 @@ def _apply_step(p: BAProblem, dx_c, dx_l) -> BAProblem:
     dRc, dtc = se3_exp(dx_c)
     dRl, dtl = se3_exp(dx_l)
     return p._replace(
-        cam_R=jnp.einsum("kij,kjm->kim", p.cam_R, dRc),
-        cam_t=p.cam_t + jnp.einsum("kij,kj->ki", p.cam_R, dtc),
-        lm_R=jnp.einsum("lij,ljm->lim", p.lm_R, dRl),
-        lm_t=p.lm_t + jnp.einsum("lij,lj->li", p.lm_R, dtl),
+        cam_R=jnp.einsum("kij,kjm->kim", p.cam_R, dRc, precision=_HI),
+        cam_t=p.cam_t + jnp.einsum("kij,kj->ki", p.cam_R, dtc, precision=_HI),
+        lm_R=jnp.einsum("lij,ljm->lim", p.lm_R, dRl, precision=_HI),
+        lm_t=p.lm_t + jnp.einsum("lij,lj->li", p.lm_R, dtl, precision=_HI),
     )
 
 
 def _back_substitute(Hll_inv, gl, Wo, obs_lm, obs_kf, dx_c):
     """Hll dx_l = -gl - W^T dx_c, per-observation scatter (local shard)."""
-    y = jnp.einsum("oij,oi->oj", Wo, dx_c[obs_kf])        # (O, 6)
+    y = jnp.einsum("oij,oi->oj", Wo, dx_c[obs_kf], precision=_HI)  # (O, 6)
     rhs = -gl - jnp.zeros_like(gl).at[obs_lm].add(y)
-    return jnp.einsum("lij,lj->li", Hll_inv, rhs)
+    return jnp.einsum("lij,lj->li", Hll_inv, rhs, precision=_HI)
 
 
 def gauss_newton_step(p: BAProblem, damping: float = 1e-4,

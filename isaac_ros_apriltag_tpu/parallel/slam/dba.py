@@ -3,7 +3,7 @@
 The BASELINE.json north-star component: tag landmarks and their observations
 are partitioned into map blocks across the mesh 'map' axis; each device
 linearizes only its local factors, computes its additive contribution to the
-reduced camera system (Schur complement), and a single psum over ICI/DCN
+reduced camera system (Schur complement), and a single psum over the mesh
 reduces the 6K x 6K system, which every device then solves redundantly (it is
 tiny) before back-substituting its local landmarks. Camera states are
 replicated; landmark states and observations are sharded.

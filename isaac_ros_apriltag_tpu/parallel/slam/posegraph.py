@@ -3,7 +3,7 @@
 Complements ba.py for loop-closure style corrections: nodes are keyframe
 poses, edges are relative transforms (e.g. from tag co-observation). Dense
 damped Gauss-Newton — the keyframe count is small (<=256), so the 6K x 6K
-normal system is a single MXU-friendly solve.
+normal system is a single dense solve.
 """
 
 from __future__ import annotations
@@ -14,6 +14,14 @@ import jax
 import jax.numpy as jnp
 
 from ...utils.geometry import se3_exp
+
+# Every f32 contraction is pinned: a default-precision f32 dot may round its
+# operands (to TF32 on the GPU).
+_HI = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HI)
 
 
 class PoseGraph(NamedTuple):
@@ -42,13 +50,13 @@ def _edge_residual(xi, xj, Ri, ti, Rj, tj, Rm, tm):
     """12 -> 6 residual: log( (T_i dXi)^-1 (T_j dXj) ) - measurement."""
     dRi, dti = se3_exp(xi)
     dRj, dtj = se3_exp(xj)
-    Ri2 = Ri @ dRi
-    ti2 = ti + Ri @ dti
-    Rj2 = Rj @ dRj
-    tj2 = tj + Rj @ dtj
-    Rij = Ri2.T @ Rj2
-    tij = Ri2.T @ (tj2 - ti2)
-    r_rot = _log_so3(Rm.T @ Rij)
+    Ri2 = _mm(Ri, dRi)
+    ti2 = ti + _mm(Ri, dti)
+    Rj2 = _mm(Rj, dRj)
+    tj2 = tj + _mm(Rj, dtj)
+    Rij = _mm(Ri2.T, Rj2)
+    tij = _mm(Ri2.T, tj2 - ti2)
+    r_rot = _log_so3(_mm(Rm.T, Rij))
     r_t = tij - tm
     return jnp.concatenate([r_rot, r_t])
 
@@ -73,13 +81,16 @@ def gauss_newton_step(g: PoseGraph, damping: float = 1e-6):
 
     Kn = g.R.shape[0]
     H = jnp.zeros((Kn, 6, Kn, 6))
-    H = H.at[g.edge_i, :, g.edge_i, :].add(jnp.einsum("eij,eik->ejk", Ji, Ji))
-    H = H.at[g.edge_j, :, g.edge_j, :].add(jnp.einsum("eij,eik->ejk", Jj, Jj))
-    H = H.at[g.edge_i, :, g.edge_j, :].add(jnp.einsum("eij,eik->ejk", Ji, Jj))
-    H = H.at[g.edge_j, :, g.edge_i, :].add(jnp.einsum("eij,eik->ejk", Jj, Ji))
+    def JtJ(A, B):
+        return jnp.einsum("eij,eik->ejk", A, B, precision=_HI)
+
+    H = H.at[g.edge_i, :, g.edge_i, :].add(JtJ(Ji, Ji))
+    H = H.at[g.edge_j, :, g.edge_j, :].add(JtJ(Jj, Jj))
+    H = H.at[g.edge_i, :, g.edge_j, :].add(JtJ(Ji, Jj))
+    H = H.at[g.edge_j, :, g.edge_i, :].add(JtJ(Jj, Ji))
     b = jnp.zeros((Kn, 6))
-    b = b.at[g.edge_i].add(jnp.einsum("eij,ei->ej", Ji, r))
-    b = b.at[g.edge_j].add(jnp.einsum("eij,ei->ej", Jj, r))
+    b = b.at[g.edge_i].add(jnp.einsum("eij,ei->ej", Ji, r, precision=_HI))
+    b = b.at[g.edge_j].add(jnp.einsum("eij,ei->ej", Jj, r, precision=_HI))
 
     H = H.at[jnp.arange(Kn), :, jnp.arange(Kn), :].add(damping * jnp.eye(6))
     # gauge: pin node 0
@@ -87,8 +98,8 @@ def gauss_newton_step(g: PoseGraph, damping: float = 1e-6):
 
     dx = jnp.linalg.solve(H.reshape(Kn * 6, Kn * 6), -b.reshape(Kn * 6)).reshape(Kn, 6)
     dR, dt = se3_exp(dx)
-    new = g._replace(R=jnp.einsum("kij,kjm->kim", g.R, dR),
-                     t=g.t + jnp.einsum("kij,kj->ki", g.R, dt))
+    new = g._replace(R=jnp.einsum("kij,kjm->kim", g.R, dR, precision=_HI),
+                     t=g.t + jnp.einsum("kij,kj->ki", g.R, dt, precision=_HI))
     nedge = jnp.maximum(jnp.sum(g.edge_valid), 1)
     rms = jnp.sqrt(jnp.sum(r * r) / (6.0 * nedge))
     return new, rms

@@ -27,12 +27,9 @@ identical to the single-device detector (asserted in tests/test_spatial.py).
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..camera.model import CameraModel
 from ..config import DetectorConfig
@@ -62,31 +59,22 @@ def _fill_edge(band, axis_name, which, nshards, fill):
 
 
 def spatial_threshold(gray_band: jax.Array, ts: int, min_diff: int,
-                      axis_name: str, nshards: int,
-                      backend: str = "xla") -> jax.Array:
+                      axis_name: str, nshards: int) -> jax.Array:
     """Sharded adaptive threshold, bit-identical to the single-device op.
 
     gray_band: this shard's (Hb, W) rows of the segmentation image; Hb must
     be a multiple of ts. Halo = 2*ts rows each side (tile stats + dilation).
-    backend: 'xla' or 'pallas'/'interpret' (the Pallas threshold kernel runs
-    per shard on its padded band; bit-identical to the XLA op, so the
-    sharded result stays bit-identical too).
     """
     halo = 2 * ts
     above, below = _neighbor_rows(gray_band, halo, axis_name, nshards)
     # Edge fill: replicate the band's own edge rows (idempotent under the
-    # min/max tile stats, same trick as the single-device pallas kernel).
+    # min/max tile stats).
     above = jnp.where(jax.lax.axis_index(axis_name) == 0,
                       jnp.broadcast_to(gray_band[:1], above.shape), above)
     below = jnp.where(jax.lax.axis_index(axis_name) == nshards - 1,
                       jnp.broadcast_to(gray_band[-1:], below.shape), below)
     padded = jnp.concatenate([above, gray_band, below], 0)
-    if backend in ("pallas", "interpret"):
-        from ..ops.pallas.threshold import adaptive_threshold_pallas
-        tri = adaptive_threshold_pallas(padded, ts, min_diff,
-                                        interpret=backend == "interpret")
-    else:
-        tri = adaptive_threshold(padded, ts, min_diff)
+    tri = adaptive_threshold(padded, ts, min_diff)
     return tri[halo:halo + gray_band.shape[0]]
 
 
@@ -190,8 +178,7 @@ def _build_front(config: DetectorConfig, camera: CameraModel, mesh: Mesh,
         def per_shard(b):
             b = b.reshape(b.shape[-2], b.shape[-1])
             tri = spatial_threshold(b, cfg.tile_size,
-                                    cfg.min_white_black_diff, axis, nshards,
-                                    backend=cfg.backend)
+                                    cfg.min_white_black_diff, axis, nshards)
             y0 = jax.lax.axis_index(axis) * (Hp // nshards)
             if Hp != Hp0:
                 rows = y0 + jax.lax.broadcasted_iota(

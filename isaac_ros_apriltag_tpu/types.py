@@ -1,6 +1,6 @@
 """Result pytrees: fixed-capacity detection arrays.
 
-TPU-native replacement for the reference's AprilTagDetectionArray message
+Replacement for the reference's AprilTagDetectionArray message
 (ref: isaac_ros_apriltag_interfaces, used at apriltag_node.cpp:324-363).
 All arrays have a static leading dim of max_tags; `valid` masks real rows —
 the moral equivalent of the reference's max_tags-capacity VPI array + size

@@ -12,6 +12,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+# f32 contractions are pinned: a default-precision f32 dot may round its
+# operands (to TF32 on the GPU).
+_HI = jax.lax.Precision.HIGHEST
+
 
 def quat_from_rotmat(R: jax.Array) -> jax.Array:
     """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4) as (w, x, y, z).
@@ -55,7 +59,7 @@ def rotmat_from_quat(q: jax.Array) -> jax.Array:
 def homography_from_correspondences(src: jax.Array, dst: jax.Array) -> jax.Array:
     """Exact 4-point homography. src, dst: (..., 4, 2). Returns (..., 3, 3).
 
-    Solves the standard 8x8 DLT system (batched; lands on the MXU). H maps
+    Solves the standard 8x8 DLT system (batched). H maps
     src -> dst with H[2, 2] = 1.
     """
     # Hartley normalization of dst: raw pixel coords (~1e3) in the DLT matrix
@@ -87,7 +91,7 @@ def homography_from_correspondences(src: jax.Array, dst: jax.Array) -> jax.Array
 def apply_homography(H: jax.Array, pts: jax.Array) -> jax.Array:
     """H: (..., 3, 3); pts: (..., N, 2) -> (..., N, 2)."""
     ph = jnp.concatenate([pts, jnp.ones_like(pts[..., :1])], -1)
-    q = jnp.einsum("...ij,...nj->...ni", H, ph)
+    q = jnp.einsum("...ij,...nj->...ni", H, ph, precision=_HI)
     return q[..., :2] / q[..., 2:3]
 
 
@@ -153,13 +157,14 @@ def se3_exp(tau: jax.Array) -> tuple[jax.Array, jax.Array]:
     st = jnp.sin(theta)[..., None]
     ct = jnp.cos(theta)[..., None]
     I = jnp.broadcast_to(jnp.eye(3), K.shape)
-    KK = jnp.einsum("...ij,...jk->...ik", K, K)
+    KK = jnp.einsum("...ij,...jk->...ik", K, K, precision=_HI)
     R = I + st * K + (1 - ct) * KK
     th = theta[..., None]
     V = I + ((1 - ct) / th) * K + ((th - st) / th) * KK
     small = (theta < 1e-6)[..., None]
     R = jnp.where(small, I + skew(omega), R)
-    t = jnp.where(small[..., 0], v, jnp.einsum("...ij,...j->...i", V, v))
+    t = jnp.where(small[..., 0], v, jnp.einsum("...ij,...j->...i", V, v,
+                                                        precision=_HI))
     return R, t
 
 

@@ -137,6 +137,12 @@ def upright_pose(t: np.ndarray, inplane: float = 0.0) -> np.ndarray:
     return rotz(np.pi + inplane)
 
 
+# The reference's shipped usb_cam calibration, 1280x720 plumb_bob
+# (ref: isaac_ros_apriltag/config/camera_info.yaml:19-44).
+USB_CAM = dict(fx=942.53242, fy=946.21221, cx=642.81122, cy=346.71313,
+               width=1280, height=720,
+               dist=[0.065725, -0.096954, 0.002318, 0.004110, 0.0])
+
 GOLDEN = dict(
     # ref: test/isaac_ros_apriltag_pol_test.py:116-175 + test_cases/apriltag0/
     family="tag36h11", id=0,
@@ -186,3 +192,28 @@ def distort_image(ideal: np.ndarray, camera) -> np.ndarray:
     out = (im[v0, u0] * (1 - fu) * (1 - fv) + im[v0, u0 + 1] * fu * (1 - fv)
            + im[v0 + 1, u0] * (1 - fu) * fv + im[v0 + 1, u0 + 1] * fu * fv)
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def six_tag_scene(H: int, W: int, *, noise: float = 2.0, seed: int = 0,
+                  camera=None, family: str = "tag36h11"):
+    """The benchmark scene: six upright tags of `family` (ids 1, 8, ..., 36,
+    0.3 m, each rolled a further 0.1 rad) in a 3x2 grid 2.5 m in front of
+    the camera. The default camera is a pinhole with fx = fy = 900 * W /
+    1920 centered on the frame. Returns (camera, frame, tags); `tags` holds
+    each tag's ground-truth id, R and t."""
+    from ..camera.model import CameraModel
+    from ..models.families import get_family
+
+    if camera is None:
+        camera = CameraModel.create(fx=900.0 * W / 1920, fy=900.0 * W / 1920,
+                                    cx=W / 2, cy=H / 2, width=W, height=H)
+    fam = get_family(family)
+    tags = []
+    for i, (x, y) in enumerate([(-0.8, -0.45), (0.0, -0.45), (0.8, -0.45),
+                                (-0.8, 0.45), (0.0, 0.45), (0.8, 0.45)]):
+        t = np.array([x, y, 2.5])
+        tags.append(dict(family=fam, id=7 * i + 1, R=upright_pose(t, 0.1 * i),
+                         t=t, tag_size=0.3))
+    frame = render_tags(np.asarray(camera.K), (H, W), tags, noise=noise,
+                        seed=seed)
+    return camera, frame, tags

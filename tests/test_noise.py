@@ -88,7 +88,7 @@ def test_clean_scene_has_no_overflow(camera):
 
 def test_bench_scene_1080p_noise2(camera):
     """The exact round-1 benchmark failure: 6 tags, 1080p, noise=2.0 ->
-    was 0 detections (VERDICT item 1). Must now find all 6."""
+    was 0 detections in an early revision. Must now find all 6."""
     H, W = 1080, 1920
     cam = CameraModel.create(fx=900.0, fy=900.0, cx=W / 2, cy=H / 2,
                              width=W, height=H)

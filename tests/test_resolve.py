@@ -1,10 +1,10 @@
 """Tests for the sort-based component resolution (ops/resolve.py) and the
-fused single-kernel Pallas CCL (ops/pallas/ccl_fused.py).
+production two-phase scan CCL (ops/ccl.two_phase_ccl).
 
 Differential pattern (ref: test/isaac_ros_apriltag_backends_compare_test.py:
-162-249 applied at kernel level): the fused kernel must be BIT-identical to
-the XLA scan rounds, and scans+resolve must reproduce the fully-converged
-(jump-based) CCL's components exactly.
+162-249 applied at stage level): scans+resolve must reproduce the
+fully-converged (jump-based) CCL's components exactly, and the scan
+backend's detections must match the jump-based oracle's.
 """
 
 import jax.numpy as jnp
@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 
 from isaac_ros_apriltag_tpu.models.families import get_family
-from isaac_ros_apriltag_tpu.ops.ccl import component_sizes, connected_components
-from isaac_ros_apriltag_tpu.ops.pallas.ccl_fused import ccl_scan_pallas
+from isaac_ros_apriltag_tpu.ops.ccl import (component_sizes,
+                                            connected_components,
+                                            two_phase_ccl)
 from isaac_ros_apriltag_tpu.ops.resolve import _KMAX, resolve_components
 from isaac_ros_apriltag_tpu.ops.threshold import adaptive_threshold
 from isaac_ros_apriltag_tpu.utils.render import render_tags, upright_pose
@@ -28,6 +29,12 @@ def _speckle_scene(shape=(96, 128), seed=3, ring=True):
         tri[14:76, 16:96] = 0
         tri[22:68, 24:88] = 255
     return tri
+
+
+def _scan(tri, rounds, label0=None):
+    """Jump-free scan rounds with the convergence flag (one CCL phase)."""
+    return connected_components(jnp.asarray(tri), rounds, 0, label0=label0,
+                                with_convergence=True)
 
 
 def _old_dense(lab, valid, min_pixels):
@@ -59,18 +66,26 @@ def test_resolve_matches_old_relabel_on_converged_labels():
 
 
 def test_fused_kernel_bit_matches_xla_scan_rounds():
+    """The convergence-flag form (rounds-1 looped + one explicit round) is
+    bit-identical to the plain loop of scan rounds, and so is phase 1 of
+    the two-phase CCL."""
     tri = _speckle_scene()
     for rounds in (1, 4, 12):
         a = np.asarray(connected_components(jnp.asarray(tri), rounds, 0))
-        b, _ = ccl_scan_pallas(jnp.asarray(tri), rounds, interpret=True)
+        b, _ = _scan(tri, rounds)
+        c, _, table, _ = two_phase_ccl(jnp.asarray(tri), rounds, 0,
+                                       max_components=4096,
+                                       contraction_steps=5)
+        assert table is None
         np.testing.assert_array_equal(a, np.asarray(b))
+        np.testing.assert_array_equal(a, np.asarray(c))
 
 
 def test_fused_kernel_convergence_flag():
     tri = np.full((16, 128), 127, np.uint8)
     tri[4:12, 8:120] = 0
-    _, conv1 = ccl_scan_pallas(jnp.asarray(tri), 1, interpret=True)
-    _, conv4 = ccl_scan_pallas(jnp.asarray(tri), 4, interpret=True)
+    _, conv1 = _scan(tri, 1)
+    _, conv4 = _scan(tri, 4)
     assert not bool(conv1)     # first round changes labels
     assert bool(conv4)         # a solid rectangle converges quickly
 
@@ -91,7 +106,7 @@ def test_scans_plus_resolve_chain_fixpoint_on_noisy_scene():
                             tag_size=0.16)], noise=2.0).astype(np.float32)
     tri = np.asarray(adaptive_threshold(jnp.asarray(img), 4, 5))
     valid = tri != 127
-    lab, _ = ccl_scan_pallas(jnp.asarray(tri), 16, interpret=True)
+    lab, _ = _scan(tri, 16)
     res = resolve_components(lab, jnp.asarray(valid),
                              min_component_pixels=25, chain_steps=5,
                              with_roots=True)
@@ -110,8 +125,8 @@ def test_scans_plus_resolve_chain_fixpoint_on_noisy_scene():
 
 
 def test_noisy_detection_parity_interpret_vs_xla():
-    """Detection-level parity on a noisy scene: the scan+resolve (interpret)
-    backend and the jump-based XLA oracle must agree on ids and corners
+    """Detection-level parity on a noisy scene: the two-phase scan backend
+    and the jump-based XLA oracle must agree on ids and corners
     even where speckle labeling differs (the reference's backends-compare
     contract, ref: test/isaac_ros_apriltag_backends_compare_test.py:162-249)."""
     from isaac_ros_apriltag_tpu import CameraModel, Detector, DetectorConfig
@@ -127,7 +142,7 @@ def test_noisy_detection_parity_interpret_vs_xla():
                          t=t, tag_size=0.16))
     img = render_tags(np.asarray(cam.K), (480, 640), tags, noise=2.0)
     det_x = Detector(DetectorConfig(backend="xla", tag_size=0.16), cam)
-    det_p = Detector(DetectorConfig(backend="interpret", tag_size=0.16), cam)
+    det_p = Detector(DetectorConfig(backend="scan", tag_size=0.16), cam)
     rx = sorted(det_x.detect(img, encoding="mono8").to_list(),
                 key=lambda d: d["id"])
     rp = sorted(det_p.detect(img, encoding="mono8").to_list(),
@@ -200,28 +215,40 @@ def test_resolve_under_vmap():
 
 
 def test_fused_kernel_under_vmap():
+    """The two-phase CCL batched under vmap equals the single-frame run."""
     tri = _speckle_scene(shape=(32, 128), ring=False)
     import jax
 
-    batched = jax.vmap(lambda t: ccl_scan_pallas(t, 6, interpret=True)[0])
+    def ccl(t):
+        return two_phase_ccl(t, 6, 3, max_components=2048,
+                             contraction_steps=5)[0]
+
+    batched = jax.vmap(ccl)
     out = batched(jnp.stack([jnp.asarray(tri)] * 2))
-    single, _ = ccl_scan_pallas(jnp.asarray(tri), 6, interpret=True)
+    single = ccl(jnp.asarray(tri))
     np.testing.assert_array_equal(np.asarray(out[0]), np.asarray(single))
     np.testing.assert_array_equal(np.asarray(out[1]), np.asarray(single))
 
 
 def test_ccl_label0_parity():
-    """ccl_scan_pallas(label0=...) bit-matches the XLA backend seeded with
-    the same labels (the two-phase CCL's second phase)."""
+    """A seeded scan phase (the two-phase CCL's second phase): seeding with
+    the flat-index identity bit-matches the unseeded scan, and seeding with
+    contracted roots only ever lowers labels, never across components."""
     tri = _speckle_scene(shape=(64, 128))
-    lab1, _ = ccl_scan_pallas(jnp.asarray(tri), 4, interpret=True)
+    ident = jnp.arange(tri.size, dtype=jnp.int32).reshape(tri.shape)
+    a, _ = _scan(tri, 4)
+    b, _ = _scan(tri, 4, label0=ident)
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     from isaac_ros_apriltag_tpu.ops.resolve import resolve_roots
 
-    roots = resolve_roots(lab1, jnp.asarray(tri != 127))
-    a = np.asarray(connected_components(jnp.asarray(tri), 4, 0,
-                                        label0=roots))
-    b, _ = ccl_scan_pallas(jnp.asarray(tri), 4, interpret=True, label0=roots)
-    np.testing.assert_array_equal(a, np.asarray(b))
+    valid = tri != 127
+    roots = np.asarray(resolve_roots(a, jnp.asarray(valid)))
+    c, _ = _scan(tri, 4, label0=jnp.asarray(roots))
+    c = np.asarray(c)
+    assert (c <= roots).all()
+    ref = np.asarray(connected_components(jnp.asarray(tri), 24, 3, 1))
+    # every seeded label points into its own (converged) component
+    np.testing.assert_array_equal(ref.reshape(-1)[c[valid]], ref[valid])
 
 
 import functools
@@ -234,7 +261,7 @@ def _sweep_detectors(H, W):
     cam = CameraModel.create(fx=420.0 * W / 640, fy=420.0 * W / 640,
                              cx=W / 2, cy=H / 2, width=W, height=H)
     return (cam,
-            Detector(DetectorConfig(backend="interpret", tag_size=0.16), cam),
+            Detector(DetectorConfig(backend="scan", tag_size=0.16), cam),
             Detector(DetectorConfig(backend="xla", tag_size=0.16), cam))
 
 
@@ -297,7 +324,7 @@ def test_two_phase_ccl_survives_heavy_noise():
         tags.append(dict(family=fam, id=4 * i + 3, R=upright_pose(t, 0.1 * i),
                          t=t, tag_size=0.16))
     img = render_tags(np.asarray(cam.K), (480, 640), tags, noise=4.0)
-    det_p = Detector(DetectorConfig(backend="interpret", tag_size=0.16), cam)
+    det_p = Detector(DetectorConfig(backend="scan", tag_size=0.16), cam)
     det_x = Detector(DetectorConfig(backend="xla", tag_size=0.16), cam)
     rp = sorted(d["id"] for d in det_p.detect(img, encoding="mono8").to_list())
     rx = sorted(d["id"] for d in det_x.detect(img, encoding="mono8").to_list())
@@ -317,17 +344,15 @@ def test_rank_flow_matches_flat_flow():
     tri = _speckle_scene(shape=(64, 128))
     valid = jnp.asarray(tri != 127)
     R = 1024
-    lab1, _ = ccl_scan_pallas(jnp.asarray(tri), 4, interpret=True)
+    lab1, _ = _scan(tri, 4)
 
     roots = resolve_roots(lab1, valid, max_components=R)
-    lab2f, _ = ccl_scan_pallas(jnp.asarray(tri), 3, interpret=True,
-                               label0=roots)
+    lab2f, _ = _scan(tri, 3, label0=roots)
     res_flat = resolve_components(lab2f, valid, min_component_pixels=4,
                                   max_components=R, chain_steps=3)
 
     rank_img, table, ovf = resolve_roots_rank(lab1, valid, max_components=R)
-    lab2r, _ = ccl_scan_pallas(jnp.asarray(tri), 3, interpret=True,
-                               label0=rank_img, opaque=True)
+    lab2r, _ = _scan(tri, 3, label0=rank_img)
     res_rank = resolve_components(lab2r, valid, min_component_pixels=4,
                                   max_components=R, chain_steps=3,
                                   rank_table=table)

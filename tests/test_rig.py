@@ -135,3 +135,15 @@ def test_rig_per_camera_intrinsics(camera, rig_frames):
     worst = max(np.linalg.norm(t0[c][v0[c]][0] - want_t[c])
                 for c in range(1, N_CAM))
     assert worst > 0.03, worst
+
+
+def test_make_mesh_raises_instead_of_dropping_devices():
+    from isaac_ros_apriltag_tpu.parallel.mesh import make_mesh
+
+    n = len(jax.devices())
+    assert make_mesh().devices.shape == (n, 1)
+    assert make_mesh(devices=jax.devices()[:3]).devices.shape == (3, 1)
+    with pytest.raises(ValueError):
+        make_mesh(n_cam=n - 1)
+    with pytest.raises(ValueError):
+        make_mesh(n_map=3)
