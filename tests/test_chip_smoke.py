@@ -109,5 +109,6 @@ def test_smoke_multi_phases_on_virtual_devices():
     cs = _chip_smoke()
     devices = jax.devices()[:4]
     cs.phase_rig(devices, n_cams=8, H=480, W=640)
-    cs.phase_spatial(devices, H=480, W=640)
+    assert "known fault (ROADMAP R7)" in cs.phase_spatial(devices, H=480,
+                                                          W=640)
     cs.phase_dba(devices, n_kf=12, cols=8, rows=4)

@@ -1,19 +1,19 @@
 """Device time per detector stage, from a profiler trace of the jitted
 program.
 
-    python tools/trace_stages.py [--hw 1080,1920] [--batch 8]
-                                 [--backend scan] [--iters 5] [--out DIR]
+    python tools/trace_stages.py [--backend scan] [--out DIR]
 
-Compiles the vmapped detect program at the bench scene, times it untraced
-(warmup, then `jax.block_until_ready`), then traces `--iters` calls with
-`jax.profiler`. Each device kernel is attributed to the detector stages
+Compiles the vmapped detect program at the bench scene (1080p mono8, batch
+8), times it untraced (warmup, then `jax.block_until_ready`), then traces
+five calls with `jax.profiler`. Each device kernel is attributed to the detector stages
 (`detector.STAGES`) named in the op_name metadata of the HLO instruction it
 ran. Prints one JSON line: per-stage
 device ms per call, the device's busy and idle share of the traced window,
 and each stage's share of device time; `--out` also receives the JSON and
-the 40 longest kernels. XLA's command buffers are switched off unless
-`--keep-command-buffers` is given, so that every kernel carries its own HLO
-annotation in the trace. Needs a GPU.
+the 40 longest kernels. XLA's command buffers are switched off, so that
+every kernel carries its own HLO annotation in the trace; the untraced time
+is therefore that of the program without command buffers, not of the
+production program (`bench.py` times that). Needs a GPU.
 """
 
 from __future__ import annotations
@@ -28,6 +28,9 @@ import sys
 import tempfile
 import time
 
+HW = (1080, 1920)   # the bench scene
+BATCH = 8
+ITERS = 5
 
 def _scope_path(op_name: str, stages) -> str | None:
     """'jit(f)/vmap(ccl)/while/body/vmap(contraction)/sort' -> 'ccl/contraction'."""
@@ -127,16 +130,11 @@ def reduce_trace(xplane: str, inst_stage: dict[str, str], module: str):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--hw", default="1080,1920")
-    ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--backend", default="scan")
-    ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--keep-command-buffers", action="store_true")
     args = ap.parse_args(argv)
-    if not args.keep_command_buffers:
-        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
-                                   + " --xla_gpu_enable_command_buffer=").strip()
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_gpu_enable_command_buffer=").strip()
 
     import jax
     import jax.numpy as jnp
@@ -151,9 +149,9 @@ def main(argv=None) -> int:
 
     dev = require_gpu("trace_stages")[0]
     enable_compile_cache()
-    H, W = map(int, args.hw.split(","))
+    H, W = HW
     cam, frame, _ = six_tag_scene(H, W)
-    x = jnp.asarray(np.stack([frame] * args.batch))
+    x = jnp.asarray(np.stack([frame] * BATCH))
     fn = jax.vmap(build_detect_fn(DetectorConfig(backend=args.backend,
                                                  tag_size=0.3), cam, "mono8"))
     t0 = time.perf_counter()
@@ -166,14 +164,14 @@ def main(argv=None) -> int:
     out = jax.block_until_ready(compiled(x))
     n_det = int(np.asarray(out[1].num_detections).sum())
     t0 = time.perf_counter()
-    for _ in range(args.iters):
+    for _ in range(ITERS):
         out = compiled(x)
     jax.block_until_ready(out)
-    wall_ms = 1000 * (time.perf_counter() - t0) / args.iters
+    wall_ms = 1000 * (time.perf_counter() - t0) / ITERS
 
     tdir = tempfile.mkdtemp(prefix="trace_stages_")
     jax.profiler.start_trace(tdir)
-    for _ in range(args.iters):
+    for _ in range(ITERS):
         out = compiled(x)
     jax.block_until_ready(out)
     jax.profiler.stop_trace()
@@ -183,18 +181,17 @@ def main(argv=None) -> int:
     total = sum(v for k, v in per_stage.items() if k != "other_module")
     res = {
         "platform": dev.platform, "device_kind": dev.device_kind,
-        "hw": [H, W], "batch": args.batch, "backend": args.backend,
-        "iters": args.iters, "detections": n_det,
-        "command_buffers": args.keep_command_buffers,
+        "hw": [H, W], "batch": BATCH, "backend": args.backend,
+        "iters": ITERS, "detections": n_det,
         "compile_s": round(compile_s, 2),
-        "untraced_ms_per_call": round(wall_ms, 3),
-        "device_ms_per_call": {k: round(v / 1e6 / args.iters, 4)
+        "untraced_ms_per_call_no_command_buffers": round(wall_ms, 3),
+        "device_ms_per_call": {k: round(v / 1e6 / ITERS, 4)
                                for k, v in per_stage.most_common()},
         "stage_share": {k: round(v / total, 4)
                         for k, v in per_stage.most_common()
                         if k != "other_module"},
-        "busy_ms_per_call": round(busy / 1e6 / args.iters, 4),
-        "window_ms_per_call": round(window / 1e6 / args.iters, 4),
+        "busy_ms_per_call": round(busy / 1e6 / ITERS, 4),
+        "window_ms_per_call": round(window / 1e6 / ITERS, 4),
         "idle_share": round(1.0 - busy / window, 4),
     }
     print(json.dumps(res), flush=True)
@@ -202,7 +199,7 @@ def main(argv=None) -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, f"stages_{args.backend}.json"), "w") as f:
             json.dump(dict(res, top_kernels=[
-                [s, op, round(ns / 1e6 / args.iters, 4)]
+                [s, op, round(ns / 1e6 / ITERS, 4)]
                 for (s, op), ns in top]), f, indent=1)
     return 0
 
